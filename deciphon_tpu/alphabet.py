@@ -5,7 +5,7 @@ Functional parity targets (reference: EBI-Metagenomics/deciphon):
   - c-core/sequence.c:47-84      (uppercase, DNA/RNA mismatch detection)
   - imm alphabets: dna "ACGT", rna "ACGU", amino "ACDEFGHIKLMNPQRSTVWY"
 
-TPU-first design note: sequences become int8 arrays of symbol indices the
+Design note: sequences become int8 arrays of symbol indices the
 moment they enter the framework; every later stage (fragment-code precompute,
 Viterbi emission gathers) is pure array math.
 """

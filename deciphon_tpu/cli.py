@@ -23,7 +23,7 @@ from .gencode import GENCODE_IDS
 
 @click.group()
 def cli():
-    """TPU-native Deciphon: protein annotation on nucleotide long reads."""
+    """Deciphon on JAX: protein annotation on nucleotide long reads."""
 
 
 @cli.command()
@@ -75,13 +75,13 @@ def press(hmmfile, gencode, epsilon, output, progress):
 @click.option("--read-length", "read_lengths", type=int, multiple=True,
               help="Expected read length(s); default = one full window "
                    "per distinct profile core size plus a 10 knt read. "
-                   "Chain-tier shapes pin to the warmup reads' length "
-                   "mix, so pass your production read length.")
+                   "Compiled shapes follow the reads' lengths, so pass "
+                   "your production read length.")
 @click.option("--reads-per-length", type=int, default=1, show_default=True,
               help="Synthetic reads per length (more reads exercise the "
                    "wider chunk shapes a deep scan uses).")
-@click.option("--engine", type=click.Choice(["pallas", "jax"]),
-              default="pallas", show_default=True)
+@click.option("--engine", type=click.Choice(["cuda", "jax"]), default=None,
+              help="Phase-1 engine [default: cuda on a GPU, jax on the CPU]")
 def warmup(dbfile, read_lengths, reads_per_length, engine):
     """Precompile the scan kernels for DBFILE into the persistent XLA
     cache (one-time per database + read-length profile): later scans
@@ -96,7 +96,7 @@ def warmup(dbfile, read_lengths, reads_per_length, engine):
     dt = scanner.warmup(list(read_lengths) or None,
                         reads_per_length=reads_per_length)
     click.echo(f"warmup done in {dt:.1f}s "
-               f"({len(profiles)} profiles, engine={engine})")
+               f"({len(profiles)} profiles, engine={scanner.engine})")
 
 
 @cli.command()
@@ -107,8 +107,9 @@ def warmup(dbfile, read_lengths, reads_per_length, engine):
 @click.option("--multi-hits/--no-multi-hits", default=True, show_default=True)
 @click.option("--hmmer3-compat/--no-hmmer3-compat", default=False,
               show_default=True)
-@click.option("--engine", type=click.Choice(["pallas", "jax", "native"]),
-              default="pallas", show_default=True)
+@click.option("--engine", type=click.Choice(["cuda", "jax", "native"]),
+              default=None,
+              help="Phase-1 engine [default: cuda on a GPU, jax on the CPU]")
 @click.option("--hmmer", "hmmer_port", type=int, default=None,
               help="Confirm hits against hmmpgmd on this port.")
 @click.option("--confirm", "confirm_mode",

@@ -3,10 +3,10 @@
 The reference's lowest Python layer wraps the C engine with four objects:
 `PressContext`, `Scan`, `Batch`, `Sequence` plus `DeciphonError`
 (python-core/deciphon_core/{press,scan,batch,sequence,error}.py).  Users
-migrating from deciphon find the same surface here, backed by the TPU
+migrating from deciphon find the same surface here, backed by the JAX
 engines; `port`/`num_threads` are accepted for signature compatibility
-(threads are meaningless under one jitted device program; a port wires
-the hmmpgmd confirmer exactly like the reference).
+(threads are meaningless under one device program per wave; a port
+wires the hmmpgmd confirmer exactly like the reference).
 """
 
 from __future__ import annotations
@@ -92,11 +92,6 @@ class Scan:
                                  num_proteins=len(profiles),
                                  has_ga=all(p.has_ga for p in profiles))
             confirmer = client.confirm
-        if engine is None:
-            import jax
-
-            engine = ("pallas" if jax.devices()[0].platform not in ("cpu",)
-                      else "jax")
         self._scanner = Scanner(
             profiles,
             ScanConfig(multi_hits=multi_hits, hmmer3_compat=hmmer3_compat,

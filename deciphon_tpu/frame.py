@@ -276,7 +276,7 @@ def emission_feature_matrix(epsilon: float) -> np.ndarray:
       p(F) = Σ_j exp(const_j) * qe[ins0_j] * qe[ins1_j] * pm[pattern_j]
     so with features X[(p, a, b)] = pm[p] * qe[a] * qe[b] (125 patterns x
     5 x 5 insertion symbols, slot 4 = "none" = 1) the whole table is one
-    (K, 3125) x (3125, 1364) GEMM — the MXU-shaped formulation of the
+    (K, 3125) x (3125, 1364) GEMM — the matrix-unit-shaped formulation of the
     press hot loop (c-core/protein.c:95-104, OpenMP over nodes).
     """
     di_class, pat, ins0, ins1 = _term_tables()

@@ -19,7 +19,7 @@ __all__ = ["GuiController", "run_app"]
 class GuiController:
     """Display-free core of the GUI: owns press/scan state."""
 
-    def __init__(self, workdir: str | None = None, engine: str = "pallas"):
+    def __init__(self, workdir: str | None = None, engine: str | None = None):
         self.workdir = workdir or tempfile.mkdtemp(prefix="deciphon_gui_")
         self.engine = engine
         self.dcp_path: str | None = None
@@ -89,7 +89,7 @@ def run_app():  # pragma: no cover - needs a display
 
     ctl = GuiController()
     root = tk.Tk()
-    root.title("Deciphon TPU")
+    root.title("Deciphon")
     root.geometry("900x700")
 
     top = ttk.Frame(root, padding=8)

@@ -38,7 +38,7 @@ from __future__ import annotations
 import math
 from dataclasses import dataclass, field
 
-import msgpack
+from ..io import mpack
 
 __all__ = ["H3Result", "H3Stats", "H3TopHits", "H3Hit", "H3Domain",
            "H3AliDisplay"]
@@ -311,8 +311,8 @@ class H3TopHits:
 def _packb(obj) -> bytes:
     """msgpack pack preserving the f32/f64 float split via _F32 markers."""
     out = bytearray()
-    pk64 = msgpack.Packer(autoreset=True)
-    pk32 = msgpack.Packer(use_single_float=True, autoreset=True)
+    pk64 = mpack.Packer()
+    pk32 = mpack.Packer(use_single_float=True)
 
     def emit(o):
         if isinstance(o, _F32):
@@ -382,7 +382,7 @@ class H3Result:
 
     @classmethod
     def from_blob(cls, blob: bytes) -> "H3Result":
-        obj = msgpack.unpackb(blob, strict_map_key=False)
+        obj = mpack.unpackb(blob)
         if not isinstance(obj, dict) or "h3result" not in obj:
             raise ValueError("not an h3result blob")
         body = obj["h3result"]

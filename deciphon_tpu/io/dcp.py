@@ -1,4 +1,4 @@
-"""The .dcp pressed-profile database container (msgpack) — reference-exact.
+"""The .dcp pressed-profile database container (MessagePack) — reference-exact.
 
 Byte layout mirrors the reference exactly (c-core/database_writer.c:95-193,
 protein.c:234-284, write.c:60-66), including the imm-owned sub-blobs, which
@@ -53,17 +53,16 @@ fd limits apply) and the final byte layout is identical.
 
 from __future__ import annotations
 
-import io as _io
 import os
 import struct
 from dataclasses import dataclass
 
-import msgpack
 import numpy as np
 
 from .. import frame
 from ..frame import codon_marginals, nuclt_marginal_lprobs
 from ..profile import FrameProfile
+from . import mpack
 
 MAGIC_NUMBER = 0xC6F1
 DATABASE_VERSION = 0x01
@@ -106,7 +105,7 @@ def _pack_abc(packer, symbols: str, typeid: int) -> bytes:
     out.append(packer.pack("symbols"))
     out.append(packer.pack(symbols))
     out.append(packer.pack("idx"))
-    out.append(packer.pack(msgpack.ExtType(EXT_I8, _abc_idx_table(symbols))))
+    out.append(packer.pack(mpack.ExtType(EXT_I8, _abc_idx_table(symbols))))
     out.append(packer.pack("any_symbol_id"))
     out.append(packer.pack(ord(ANY_SYMBOL) - SYM_FIRST_CHAR))
     out.append(packer.pack("typeid"))
@@ -131,9 +130,11 @@ def _f32_msgpack_array(values: np.ndarray) -> bytes:
         head = struct.pack(">BH", 0xDC, n)
     else:
         head = struct.pack(">BI", 0xDD, n)
-    raw = a.tobytes()  # big-endian f32 payloads (msgpack float32 is BE)
-    body = b"".join(b"\xca" + raw[4 * i:4 * i + 4] for i in range(n))
-    return head + body
+    # each element: 0xca + big-endian f32 payload
+    body = np.empty((n, 5), np.uint8)
+    body[:, 0] = 0xCA
+    body[:, 1:] = a.view(np.uint8).reshape(n, 4)
+    return head + body.tobytes()
 
 
 def _pack_nuclt_dist(packer, nuclt_lprobs: np.ndarray,
@@ -172,7 +173,7 @@ class DcpWriter:
         self._chunk_paths: list[str] = []
         self._tmp = None
         self._rotate()
-        self._packer = msgpack.Packer(use_single_float=True, autoreset=True)
+        self._packer = mpack.Packer(use_single_float=True)
 
     def _rotate(self) -> None:
         if self._tmp is not None:
@@ -293,7 +294,7 @@ class DcpFormatError(ValueError):
 
 def _f32arr(val) -> np.ndarray:
     """Decode any generation's f32 array value."""
-    if isinstance(val, msgpack.ExtType):
+    if isinstance(val, mpack.ExtType):
         if val.code != EXT_F32_BE:
             raise DcpFormatError(f"unexpected ext type {val.code} for f32 array")
         return np.frombuffer(val.data, ">f4").astype(np.float32)
@@ -305,7 +306,7 @@ def _f32arr(val) -> np.ndarray:
 
 
 def _u32arr(val) -> list[int]:
-    if isinstance(val, msgpack.ExtType):
+    if isinstance(val, mpack.ExtType):
         if val.code != EXT_U32_BE:
             raise DcpFormatError(f"unexpected ext type {val.code} for u32 array")
         return [int(x) for x in np.frombuffer(val.data, ">u4")]
@@ -364,14 +365,12 @@ class DcpReader:
         self.close()
 
     def _read_header(self) -> None:
-        unpacker = msgpack.Unpacker(
-            self._fp, object_pairs_hook=lambda ps: ps, strict_map_key=False,
-            max_buffer_size=1 << 31)
+        unpacker = mpack.Unpacker(self._fp, object_pairs_hook=lambda ps: ps)
         try:
             self._parse_header(unpacker)
         except DcpFormatError:
             raise
-        except Exception as exc:  # malformed msgpack, bad unicode, EOF...
+        except Exception as exc:  # malformed MessagePack, bad unicode, EOF...
             raise DcpFormatError(f"corrupt .dcp file: {exc}") from exc
 
     def _parse_header(self, unpacker) -> None:
@@ -429,9 +428,7 @@ class DcpReader:
 
 
 def unpack_protein(blob: bytes, header: DcpHeader) -> FrameProfile:
-    unpacker = msgpack.Unpacker(
-        _io.BytesIO(blob), object_pairs_hook=lambda ps: ps,
-        strict_map_key=False, max_buffer_size=1 << 31)
+    unpacker = mpack.Unpacker(blob, object_pairs_hook=lambda ps: ps)
     n = unpacker.read_map_header()
     if n != 10:
         raise DcpFormatError("expected protein map(10)")

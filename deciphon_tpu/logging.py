@@ -2,7 +2,7 @@
 
 Parity: the reference's env-gated debug logging (c-core/loglevel.c:9-17,
 DECIPHON_LOGLEVEL) and its integer progress metric; extended with the
-throughput counters the TPU build needs (cells scanned, windows scored,
+throughput counters this build needs (cells scanned, windows scored,
 GCUPS) — the reference has no profiling at all (SURVEY.md §5).
 """
 
@@ -51,8 +51,8 @@ class ScanMetrics:
     wasted_windows: int = 0  # speculated windows discarded by hit rewinds
     started: float = field(default_factory=time.perf_counter)
     walls: dict = field(default_factory=dict)
-    # sync-debug only: per-bucket (true_cells, padded_cells, dispatches) —
-    # the fill diagnostic that localizes padding waste per kernel tier
+    # per-bucket (true_cells, padded_cells, calls): the fill diagnostic
+    # that localizes padding waste per K bucket
     bucket_cells: dict = field(default_factory=dict)
 
     def add_window(self, length: int, core_size: int) -> None:

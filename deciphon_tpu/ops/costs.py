@@ -42,6 +42,37 @@ def dd_cum_row(dd: np.ndarray) -> np.ndarray:
     return np.cumsum(ddc, dtype=np.float64).astype(np.float32)
 
 
+# Extended-table columns past the scored nodes: two +inf pads, then the
+# null and the background emission costs.
+TABLE_EXTRA = 4
+
+
+def build_tables(costs: "ViterbiCosts", kn: int):
+    """Device layout of one profile for the phase-1 scorers.
+
+    Returns (table (1364, kn+4) f32, tvec (9, kn+4) f32).  The table holds
+    the match costs in columns [0, K), +inf up to the last two columns,
+    which carry the null and the background emission costs: one row read
+    serves the core and the special states.  tvec is `costs.core` padded
+    with +inf, its DDCUM row recomputed over the padded DD row so that it
+    stays finite (saturated) past K.  Nodes past K can never win a
+    minimum, so scoring all kn+4 columns as nodes (the plain engine) and
+    scoring the first kn (the kernel) give the K-node costs bit for bit.
+    """
+    K = costs.K
+    if kn < K:
+        raise ValueError(f"table width {kn} < K={K}")
+    kw = kn + TABLE_EXTRA
+    table = np.full((len(costs.null), kw), INF, np.float32)
+    table[:, :K] = costs.match
+    table[:, kw - 2] = costs.null
+    table[:, kw - 1] = costs.background
+    tvec = np.full((NUM_TRANS_VECS, kw), INF, np.float32)
+    tvec[:CT_DDCUM, :K] = costs.core[:CT_DDCUM]
+    tvec[CT_DDCUM] = dd_cum_row(tvec[CT_DD])
+    return table, tvec
+
+
 @dataclass
 class ViterbiCosts:
     """Everything one Viterbi run needs, as dense f32 cost arrays."""

@@ -1,11 +1,11 @@
 """Stacked multi-profile scan engine: the framework's flagship compute step.
 
-TPU-first re-architecture of the reference's per-thread protein loop
+Re-architecture of the reference's per-thread protein loop
 (c-core/scan.c:188 + thread.c:49-86): instead of one profile per CPU thread,
 profiles are padded to a common node count and *stacked* into dense arrays,
-so one jitted computation scores a (P profiles x B windows) tile on the MXU
-host.  The profile axis maps onto the `profile` mesh axis and the window
-axis onto `window` for multi-chip runs (parallel/multidevice.py).
+so one jitted computation scores a (P profiles x B windows) tile, or N
+independent (profile, window) pairs (`scan_pairs`, the plain phase-1
+scorer of scan/scheduler.py and the reference of the CUDA kernel).
 """
 
 from __future__ import annotations
@@ -83,7 +83,7 @@ class ProfilePack:
 #
 # vmap structure: inner vmap over windows (codes/xt/length vary), outer vmap
 # over profiles (cost arrays vary).  XLA fuses the whole tile into one
-# program; under a mesh the P axis shards as `profile`, B as `window`.
+# program.
 # ---------------------------------------------------------------------------
 
 _viterbi_w = jax.vmap(
@@ -112,6 +112,52 @@ def scan_scores(core, match, null, background, xt, codes, lengths):
 
 
 scan_scores_jit = jax.jit(scan_scores)
+
+
+# ---------------------------------------------------------------------------
+# Pair-batched form: N independent (profile, window) pairs per call, the
+# plain phase-1 scorer of scan/scheduler.py (and its reference on the GPU).
+# The profiles' extended tables (ops/costs.py build_tables) are shared by
+# all pairs: each pair's codes are offset into the flattened (P*1364, kw)
+# table, so no per-pair copy of a table is made.
+# ---------------------------------------------------------------------------
+
+_viterbi_pairs = jax.vmap(
+    functools.partial(viterbi, path=False),
+    in_axes=(0, None, None, None, 0, 0, 0),
+)
+_null_pairs = jax.vmap(viterbi_null, in_axes=(None, 0, 0, 0))
+
+
+def end_codes(codes_all, starts, lpad: int):
+    """(N, lpad, 5) END-indexed window codes gathered from the scan's
+    START-indexed (T, 5) codes: the length-t fragment ending at position
+    l of a window starts at global row start + l - t.  Rows clipped at
+    either end are only read where the engine masks them (t > l) or never
+    captures them (l > length)."""
+    ls = jnp.arange(1, lpad + 1, dtype=jnp.int32)
+    ts = jnp.arange(1, 6, dtype=jnp.int32)
+    idx = starts[:, None, None] + ls[None, :, None] - ts[None, None, :]
+    idx = jnp.clip(idx, 0, codes_all.shape[0] - 1)
+    return codes_all[idx, ts - 1]
+
+
+def scan_pairs(tables, tvecs, codes_all, pidx, starts, lens, xts, *,
+               lpad: int):
+    """(alt, null) costs of N pairs, each (N,) f32, with the lax.scan engine.
+
+    Same contract as ops/viterbi_cuda.py score_pairs: tables (P, 1364, kw)
+    and tvecs (P, 9, kw) from build_tables, codes_all (T, 5) start-indexed,
+    pidx/starts/lens (N,) i32, xts (N, 16) f32; lpad >= every length."""
+    P, T, kw = tables.shape
+    flat = tables.reshape(P * T, kw)
+    null = tables[:, :, kw - 2].reshape(-1)
+    bg = tables[:, :, kw - 1].reshape(-1)
+    codes = end_codes(codes_all, starts, lpad) + (pidx * T)[:, None, None]
+    xt = xts[:, :13]
+    alt = _viterbi_pairs(tvecs[pidx], flat, null, bg, xt, codes, lens)
+    nul = _null_pairs(null, xt[:, XT_RR], codes, lens)
+    return alt, nul
 
 
 def lrt_tile(null_costs, alt_costs):

@@ -19,8 +19,8 @@ Implements the min-plus recurrence of the reference's striped SIMD kernel
 The reference's data-dependent "lazy-DD" fix-up loop (viterbi.c:561-580) is
 replaced by a closed-form min-plus prefix scan: with S[k] = Σ_{j<=k} DD[j]
 and A[k] = M_l[k-1]+MD[k],  D_l[k] = min_{j<=k}(A[j]-S[j]) + S[k] — the same
-fixpoint, computed in O(K) work / O(log K) depth (TPU-friendly, no
-data-dependent control flow).
+fixpoint, computed in O(K) work / O(log K) depth (no data-dependent
+control flow).
 
 Path mode additionally emits the bit-packed backpointer trellis in the
 reference's exact encoding (c-core/state.h:28-39, trellis.h trellis_set),
@@ -82,7 +82,7 @@ def viterbi(core, match, null, background, xt, codes, length, path=False):
     IM, II, DM = core[CT_IM], core[CT_II], core[CT_DM]
 
     # Canonical host-computed saturated DD cumsum (ops/costs.py
-    # dd_cum_row): shared bit-identically with the Pallas kernels so
+    # dd_cum_row): shared bit-identically with the CUDA kernel so
     # D-backpointer tie-breaks agree across engines.
     DD_cum = core[CT_DDCUM]
 

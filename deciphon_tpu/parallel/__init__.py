@@ -1,3 +1,3 @@
-from .multidevice import MESH_AXIS, MultiDevicePairScorer, make_mesh
+from .multidevice import MESH_AXIS, make_mesh, shard_pairs
 
-__all__ = ["MESH_AXIS", "MultiDevicePairScorer", "make_mesh"]
+__all__ = ["MESH_AXIS", "make_mesh", "shard_pairs"]

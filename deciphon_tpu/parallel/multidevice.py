@@ -1,41 +1,29 @@
 """Device-parallel scan scoring: the pair dim sharded over a 1D mesh.
 
-The TPU-native analog of the reference keeping all <=128 OpenMP threads
-saturated on the hot loop (c-core/scan.c:188, thread.c:49-86): phase-1
-scoring waves are ONE SPMD program jitted over a `jax.sharding.Mesh` —
-`jax.shard_map` splits the (NPAIR, ...) kernel inputs along the mesh's
-`dev` axis, every device runs the identical ragged Pallas program on its
-slice of the wave, and the (NPAIR, W) cost planes come back sharded.  No
-collectives are needed on the hot path (pairs are independent; the merge
-into deterministic product order happens host-side exactly as in the
-single-device scan), so the wave scales linearly with device count while
-dispatch stays a single XLA invocation per bucket.
-
-`MultiDevicePairScorer` subclasses the production `PairScorer`
-(scan/scheduler.py) and overrides only placement: it inherits the
-scan-resident device codes, `dispatch`/`collect` wave pipelining,
-per-(rung, profile) group widths, in-flight byte caps, and the Pallas
-path kernel + device traceback of phase 2 (run mesh-replicated — LRT
-survivors are <<1% of windows, c-core/thread.c:119-126, so phase 2 is
-not worth sharding).  Products are therefore byte-identical to a
-single-device scan for any device count — the reference's
+The analog of the reference keeping all <=128 OpenMP threads saturated on
+the hot loop (c-core/scan.c:188, thread.c:49-86): each phase-1 call of
+scan/scheduler.py PairScorer is ONE SPMD program jitted over a
+`jax.sharding.Mesh` — `jax.shard_map` splits the per-pair inputs along
+the mesh's `dev` axis, every device runs the same scorer (the Hopper
+kernel's FFI call, or the plain engine) on its slice, and the (N,) cost
+vectors come back sharded.  Profile tables and the scan's fragment codes
+are replicated.  No collectives are needed on the hot path: pairs are
+independent, and the merge into deterministic product order happens on
+the host exactly as in the single-device scan, so products are
+byte-identical for any device count — the reference's
 thread-count-invariance contract (python-core/tests/test_scan.py:102-104).
+Phase 2 runs on the first device (LRT survivors are few,
+c-core/thread.c:119-126).
 """
 
 from __future__ import annotations
 
-import functools
-
 import numpy as np
 
 import jax
-from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
+from jax.sharding import Mesh, PartitionSpec as P
 
-from ..ops.costs import ViterbiCosts
-from ..scan.scheduler import PackedPairScorer, PairScorer
-
-__all__ = ["MESH_AXIS", "MultiDevicePairScorer", "MultiDevicePackedScorer",
-           "make_mesh"]
+__all__ = ["MESH_AXIS", "make_mesh", "shard_pairs"]
 
 MESH_AXIS = "dev"
 
@@ -47,380 +35,15 @@ def make_mesh(devices=None) -> Mesh:
     return Mesh(np.asarray(list(devices)), (MESH_AXIS,))
 
 
-@functools.lru_cache(maxsize=None)
-def _scores_from_starts_shmap(mesh: Mesh, kappa: int, nlb: int,
-                              interpret: bool, hbm: bool):
-    """Mesh-jitted phase-1 wave: shard the pair dim, replicate tables."""
-    from ..ops import viterbi_pallas as vp
-
-    def fn(pidx, tables, tvecs, xts, lengths, starts, codes_all):
-        return vp.viterbi_scores_pairs_from_starts(
-            pidx, tables, tvecs, xts, lengths, starts, codes_all,
-            nlb=nlb, kappa=kappa, interpret=interpret, hbm=hbm)
-
+def shard_pairs(fn, mesh: Mesh):
+    """jit(shard_map(fn)) for a scorer call
+    fn(tables, tvecs, codes, pidx, starts, lens, xts) -> (alt, null):
+    tables, tvecs and codes replicated, the pair arrays and the costs
+    sharded along the mesh axis."""
     sh, rep = P(MESH_AXIS), P()
-    # check_vma=False: pallas_call out_shapes carry no varying-mesh-axes
+    # check_vma=False: an FFI call's outputs carry no varying-mesh-axes
     # annotation, so shard_map's replication checker cannot see through
-    # the kernel; the sharding here is trivially per-pair-slice.
+    # it; the sharding here is plainly per pair slice.
     return jax.jit(jax.shard_map(
-        fn, mesh=mesh,
-        in_specs=(sh, rep, rep, sh, sh, sh, rep),
+        fn, mesh=mesh, in_specs=(rep, rep, rep, sh, sh, sh, sh),
         out_specs=(sh, sh), check_vma=False))
-
-
-@functools.lru_cache(maxsize=None)
-def _scores_chained_shmap(mesh: Mesh, kappa: int, nlb: int, maxblk: int,
-                          interpret: bool):
-    """Mesh-jitted chained phase-1 wave (multi-window slots): pair dim
-    sharded, tables/LUT/codes replicated — the chain tier composes with
-    the device-parallel engine instead of degrading to rung buckets
-    (round-4 verdict weak #3)."""
-    from ..ops import viterbi_pallas as vp
-
-    def fn(pidx, tables, tvecs, sblk, wlen, gst, xti, lut, codes_all):
-        return vp.viterbi_scores_pairs_chained(
-            pidx, tables, tvecs, sblk, wlen, gst, xti, lut, codes_all,
-            nlb=nlb, maxblk=maxblk, kappa=kappa, interpret=interpret)
-
-    sh, rep = P(MESH_AXIS), P()
-    return jax.jit(jax.shard_map(
-        fn, mesh=mesh,
-        in_specs=(sh, rep, rep, sh, sh, sh, sh, rep, rep),
-        out_specs=(sh, sh), check_vma=False))
-
-
-@functools.lru_cache(maxsize=None)
-def _scores_packed_chained_shmap(mesh: Mesh, kappa: int, nlb: int,
-                                 maxblk: int, nseg: int, interpret: bool):
-    """Mesh-jitted packed-chained phase-1 wave (the round-5 unified
-    small/mid-K tier): pack-group dim sharded, pack tables/LUT/codes
-    replicated."""
-    from ..ops import viterbi_pallas as vp
-
-    def fn(pidx, tables, tvecs, sblk, wlen, gst, wsb, wln, wxt, lut,
-           codes_all):
-        return vp.viterbi_scores_pairs_packed_chained(
-            pidx, tables, tvecs, sblk, wlen, gst, wsb, wln, wxt, lut,
-            codes_all, nlb=nlb, maxblk=maxblk, nseg=nseg, kappa=kappa,
-            interpret=interpret)
-
-    sh, rep = P(MESH_AXIS), P()
-    return jax.jit(jax.shard_map(
-        fn, mesh=mesh,
-        in_specs=(sh, rep, rep, sh, sh, sh, sh, sh, sh, rep, rep),
-        out_specs=(sh, sh), check_vma=False))
-
-
-@functools.lru_cache(maxsize=None)
-def _scores_packed_shmap(mesh: Mesh, kappa: int, nlb: int, nseg: int,
-                         interpret: bool):
-    """Mesh-jitted lane-packed phase-1 wave: pack-group dim sharded,
-    stacked pack tables replicated — the small-K packing tier composes
-    with the device-parallel engine instead of degrading to classic
-    buckets (round-4 verdict weak #3)."""
-    from ..ops import viterbi_pallas as vp
-
-    def fn(pidx, tables, tvecs, xts, lens, starts, codes_all):
-        return vp.viterbi_scores_pairs_packed(
-            pidx, tables, tvecs, xts, lens, starts=starts,
-            codes_all=codes_all, nlb=nlb, kappa=kappa, nseg=nseg,
-            interpret=interpret)
-
-    sh, rep = P(MESH_AXIS), P()
-    return jax.jit(jax.shard_map(
-        fn, mesh=mesh,
-        in_specs=(sh, rep, rep, sh, sh, sh, rep),
-        out_specs=(sh, sh), check_vma=False))
-
-
-@functools.lru_cache(maxsize=None)
-def _scores_gang_shmap(mesh: Mesh, kappa: int, nlb: int, interpret: bool,
-                       vmem: bool = False):
-    """Mesh-jitted mixed-profile gang wave: group dim sharded, table
-    stack replicated.  vmem=True runs the VMEM-resident mixed pending
-    kernel (scheduler MIXED_VMEM_TABLE_BUDGET gate) instead of the
-    HBM-gather block kernel."""
-    from ..ops import viterbi_pallas as vp
-
-    inner = (vp._gather_scores_pairs_mixed_vmem_jit if vmem
-             else vp._gather_scores_pairs_hbm_mixed_jit)
-
-    def fn(pidx, tables, tvecs, xts, lens, starts, codes_all):
-        return inner(pidx, tables, tvecs, xts, lens, starts, codes_all,
-                     kappa=kappa, nlb=nlb, interpret=interpret)
-
-    sh, rep = P(MESH_AXIS), P()
-    return jax.jit(jax.shard_map(
-        fn, mesh=mesh,
-        in_specs=(sh, rep, rep, sh, sh, sh, rep),
-        out_specs=(sh, sh), check_vma=False))
-
-
-@functools.lru_cache(maxsize=None)
-def _scores_carry_shmap(mesh: Mesh, kappa: int, nlb: int, interpret: bool):
-    """Mesh-jitted carry-mode chained wave (segmented windows): the pair
-    dim and its per-pair carry planes are sharded; the cross-chunk carry
-    ROUTING (which may cross pairs, hence shards) happens OUTSIDE this
-    program, on the global arrays, where XLA inserts the gather
-    collectives (scheduler._invoke_scores_chained_carry)."""
-    from ..ops import viterbi_pallas as vp
-
-    def fn(pidx, tables, tvecs, sblk, wlen, gst, xti, conts, cbig, csml,
-           lut, codes_all):
-        return vp.viterbi_scores_pairs_chained_carry(
-            pidx, tables, tvecs, sblk, wlen, gst, xti, conts, cbig, csml,
-            lut, codes_all, nlb=nlb, kappa=kappa, interpret=interpret)
-
-    sh, rep = P(MESH_AXIS), P()
-    return jax.jit(jax.shard_map(
-        fn, mesh=mesh,
-        in_specs=(sh, rep, rep, sh, sh, sh, sh, sh, sh, sh, rep, rep),
-        out_specs=(sh, sh, sh, sh), check_vma=False))
-
-
-class MultiDevicePairScorer(PairScorer):
-    """PairScorer whose phase-1 waves run SPMD over a device mesh."""
-
-    def __init__(self, costs_list: list[ViterbiCosts], devices=None,
-                 mesh: Mesh | None = None, interpret: bool = False,
-                 kappa: int | None = None, w: int | None = None,
-                 hbm_table: bool = False):
-        if mesh is None:
-            mesh = make_mesh(devices)
-        self.mesh = mesh
-        self.ndev = int(mesh.devices.size)
-        self._codes0 = None
-        if hbm_table:
-            # The HBM-streamed-table tier (rare huge-K profiles) runs on
-            # ONE mesh device: its block kernel carries donated state
-            # buffers through a lax.scan (and io_callbacks in interpret
-            # mode), which neither shard_map nor replicated SPMD accept;
-            # its pair counts are too small to shard usefully anyway.
-            self._dev0 = mesh.devices.flat[0]
-        super().__init__(costs_list, interpret=interpret, kappa=kappa,
-                         w=w, hbm_table=hbm_table)
-
-    def _place_tables(self):
-        # Profile tables replicate across the mesh (pinned to one device
-        # for the HBM tier): every device scores arbitrary (profile,
-        # window) pairs of this scorer's bucket, the sharding analog of
-        # the reference's per-thread protein setup (c-core/scan.c:
-        # 110-134).  Phase 2 and the no-device-codes fallback paths
-        # inherit the base implementations through these same arrays.
-        where = (self._dev0 if self.hbm_table
-                 else NamedSharding(self.mesh, P()))
-        return (jax.device_put(self._tables_host, where),
-                jax.device_put(self._tvecs_host, where))
-
-    def set_device_codes(self, dev_codes) -> None:
-        if dev_codes is not None and self.hbm_table:
-            # private single-device copy: the shared DeviceSeqCodes gets
-            # mesh-replicated by the sharded sibling scorers
-            self._codes0 = jax.device_put(dev_codes.dev, self._dev0)
-        elif dev_codes is not None:
-            rep = NamedSharding(self.mesh, P())
-            if getattr(dev_codes.dev, "sharding", None) != rep:
-                # replicate the scan-resident code array once per scan;
-                # sub-scorers sharing the object see it already placed
-                dev_codes.dev = jax.device_put(dev_codes.dev, rep)
-        else:
-            self._codes0 = None
-        super().set_device_codes(dev_codes)
-
-    def _invoke_scores_from_starts(self, pidx, xts, lens, starts, nlb):
-        import jax.numpy as jnp
-
-        if self.hbm_table:
-            put = functools.partial(jax.device_put, device=self._dev0)
-            return self._vp.viterbi_scores_pairs_from_starts(
-                put(jnp.asarray(pidx)), self.tables, self.tvecs,
-                put(jnp.asarray(xts)), put(jnp.asarray(lens)),
-                put(jnp.asarray(starts)), self._codes0,
-                nlb=nlb, kappa=self.kappa, interpret=self.interpret,
-                hbm=True)
-        n = pidx.shape[0]
-        npad = -(-n // self.ndev) * self.ndev - n
-        if npad:
-            # pad the pair dim to the mesh size; pad pairs carry length 0
-            # so their (never-read) outputs stay +inf
-            pidx = np.pad(pidx, ((0, npad),))
-            xts = np.pad(xts, ((0, npad), (0, 0), (0, 0)))
-            lens = np.pad(lens, ((0, npad), (0, 0), (0, 0)))
-            starts = np.pad(starts, ((0, npad), (0, 0)))
-        sh = NamedSharding(self.mesh, P(MESH_AXIS))
-        fn = _scores_from_starts_shmap(self.mesh, self.kappa, int(nlb),
-                                       self.interpret, self.hbm_table)
-        return fn(jax.device_put(pidx, sh), self.tables, self.tvecs,
-                  jax.device_put(xts, sh), jax.device_put(lens, sh),
-                  jax.device_put(starts, sh), self.dev_codes.dev)
-
-    def _invoke_scores_chained(self, pidx, sblk, wlen, gst, xti, nlb,
-                               maxblk):
-        n = pidx.shape[0]
-        npad = -(-n // self.ndev) * self.ndev - n
-        if npad:
-            # pad the pair dim to the mesh size; pad pairs carry zero
-            # window lengths so no block is ever active on them
-            pidx = np.pad(pidx, ((0, npad),))
-            sblk = np.pad(sblk, ((0, npad), (0, 0), (0, 0)))
-            wlen = np.pad(wlen, ((0, npad), (0, 0), (0, 0)))
-            gst = np.pad(gst, ((0, npad), (0, 0), (0, 0)))
-            xti = np.pad(xti, ((0, npad), (0, 0), (0, 0)))
-        sh = NamedSharding(self.mesh, P(MESH_AXIS))
-        rep = NamedSharding(self.mesh, P())
-        if getattr(self._xt_lut_dev, "sharding", None) != rep:
-            self._xt_lut_dev = jax.device_put(self._xt_lut_dev, rep)
-        fn = _scores_chained_shmap(self.mesh, self.kappa, int(nlb),
-                                   int(maxblk), self.interpret)
-        return fn(jax.device_put(pidx, sh), self.tables, self.tvecs,
-                  jax.device_put(sblk, sh), jax.device_put(wlen, sh),
-                  jax.device_put(gst, sh), jax.device_put(xti, sh),
-                  self._xt_lut_dev, self.dev_codes.dev)
-
-    def _invoke_scores_gang(self, pidx, xts, lens, starts, nlb):
-        n = pidx.shape[0]
-        npad = -(-n // self.ndev) * self.ndev - n
-        if npad:
-            pidx = np.pad(pidx, ((0, npad), (0, 0)))
-            xts = np.pad(xts, ((0, npad), (0, 0), (0, 0)))
-            lens = np.pad(lens, ((0, npad), (0, 0), (0, 0)))
-            starts = np.pad(starts, ((0, npad), (0, 0)),
-                            constant_values=self.dev_codes.pad_start)
-        sh = NamedSharding(self.mesh, P(MESH_AXIS))
-        vmem = (not self.hbm_table and not self.stream_tables
-                and self._tables_host.nbytes
-                <= self.MIXED_VMEM_TABLE_BUDGET)
-        fn = _scores_gang_shmap(self.mesh, self.kappa, int(nlb),
-                                self.interpret, vmem=vmem)
-        return fn(jax.device_put(pidx, sh), self.tables, self.tvecs,
-                  jax.device_put(xts, sh), jax.device_put(lens, sh),
-                  jax.device_put(starts, sh), self.dev_codes.dev)
-
-    def _invoke_scores_chained_carry(self, pidx, sblk, wlen, gst, xti,
-                                     conts, route, carry_prev, nlb):
-        import jax.numpy as jnp
-
-        from ..ops import viterbi_pallas as vp
-
-        Kp = self._tables_host.shape[2]
-        CWn = vp.CW
-        n = pidx.shape[0]
-        N = -(-n // self.ndev) * self.ndev
-        npad = N - n
-        if npad:
-            pidx = np.pad(pidx, ((0, npad),))
-            sblk = np.pad(sblk, ((0, npad), (0, 0), (0, 0)))
-            wlen = np.pad(wlen, ((0, npad), (0, 0), (0, 0)))
-            gst = np.pad(gst, ((0, npad), (0, 0), (0, 0)))
-            xti = np.pad(xti, ((0, npad), (0, 0), (0, 0)))
-            conts = np.pad(conts, ((0, npad), (0, 0)))
-            route = np.pad(route, ((0, npad * CWn),))
-        sh = NamedSharding(self.mesh, P(MESH_AXIS))
-        rep = NamedSharding(self.mesh, P())
-        if getattr(self._xt_lut_dev, "sharding", None) != rep:
-            self._xt_lut_dev = jax.device_put(self._xt_lut_dev, rep)
-        if carry_prev is None:
-            cbig = jax.device_put(
-                np.zeros((N, 13, CWn, Kp), np.float32), sh)
-            csml = jax.device_put(
-                np.zeros((N, 32, CWn, 1), np.float32), sh)
-        else:
-            # cross-chunk routing on the GLOBAL sharded arrays: XLA
-            # lowers the flat gather to the needed collectives; outputs
-            # land pair-sharded for the shard_map'd kernel call
-            pbig, psml, n_src = carry_prev
-            fn_p = vp._carry_permute_jit(n_src, N)
-            cbig, csml = fn_p(pbig, psml, jnp.asarray(route))
-            cbig = jax.device_put(cbig, sh)
-            csml = jax.device_put(csml, sh)
-        fn = _scores_carry_shmap(self.mesh, self.kappa, int(nlb),
-                                 self.interpret)
-        return fn(jax.device_put(pidx, sh), self.tables, self.tvecs,
-                  jax.device_put(sblk, sh), jax.device_put(wlen, sh),
-                  jax.device_put(gst, sh), jax.device_put(xti, sh),
-                  jax.device_put(conts, sh), cbig, csml,
-                  self._xt_lut_dev, self.dev_codes.dev)
-
-
-class MultiDevicePackedScorer(PackedPairScorer):
-    """Lane-packed small-K scorer whose phase-1 waves run SPMD over a
-    device mesh: pack-group dim sharded, stacked pack tables replicated,
-    and the inner unpacked scorer (multi-window long reads, phase 2) is a
-    MultiDevicePairScorer over the same mesh — the packing tier composes
-    with the device-parallel engine (round-4 verdict weak #3)."""
-
-    def __init__(self, costs_list, nseg: int, mesh: Mesh | None = None,
-                 devices=None, interpret: bool = False,
-                 kappa: int | None = None, w: int | None = None,
-                 inner_w: int | None = None, seg: int | None = None):
-        if mesh is None:
-            mesh = make_mesh(devices)
-        self.mesh = mesh
-        self.ndev = int(mesh.devices.size)
-        super().__init__(
-            costs_list, nseg=nseg, seg=seg, interpret=interpret,
-            kappa=kappa, w=w, inner_w=inner_w,
-            inner_factory=functools.partial(MultiDevicePairScorer,
-                                            mesh=mesh))
-    def _place_tables(self):
-        rep = NamedSharding(self.mesh, P())
-        return (jax.device_put(self._tables_host, rep),
-                jax.device_put(self._tvecs_host, rep))
-
-    def set_device_codes(self, dev_codes) -> None:
-        if dev_codes is not None:
-            rep = NamedSharding(self.mesh, P())
-            if getattr(dev_codes.dev, "sharding", None) != rep:
-                dev_codes.dev = jax.device_put(dev_codes.dev, rep)
-        super().set_device_codes(dev_codes)
-
-    def _invoke_scores_packed(self, pidx, xts, lens, starts, nlb):
-        n = pidx.shape[0]
-        npad = -(-n // self.ndev) * self.ndev - n
-        if npad:
-            # pad pack-groups to the mesh size; pad groups carry length 0
-            pidx = np.pad(pidx, ((0, npad),))
-            xts = np.pad(xts, ((0, npad), (0, 0), (0, 0)))
-            lens = np.pad(lens, ((0, npad), (0, 0), (0, 0)))
-            starts = np.pad(starts, ((0, npad), (0, 0)),
-                            constant_values=self.dev_codes.pad_start)
-        sh = NamedSharding(self.mesh, P(MESH_AXIS))
-        fn = _scores_packed_shmap(self.mesh, self.kappa, int(nlb),
-                                  self.nseg, self.interpret)
-        return fn(jax.device_put(pidx, sh), self.tables, self.tvecs,
-                  jax.device_put(xts, sh), jax.device_put(lens, sh),
-                  jax.device_put(starts, sh), self.dev_codes.dev)
-
-    def _invoke_scores_packed_chained(self, pidx, sblk, wlen, gst, xti,
-                                      cap, maxblk):
-        n = pidx.shape[0]
-        N, Wc, C = sblk.shape
-        S = self.nseg
-        npad = -(-n // self.ndev) * self.ndev - n
-        if npad:
-            # pad pack-groups to the mesh size; pad groups carry zero
-            # window lengths so no block is ever active on them
-            pidx = np.pad(pidx, ((0, npad),))
-            sblk = np.pad(sblk, ((0, npad), (0, 0), (0, 0)))
-            wlen = np.pad(wlen, ((0, npad), (0, 0), (0, 0)))
-            gst = np.pad(gst, ((0, npad), (0, 0), (0, 0)))
-            xti = np.pad(xti, ((0, npad), (0, 0), (0, 0)))
-            N += npad
-        wsb = np.ascontiguousarray(
-            np.broadcast_to(sblk[:, :, None, :], (N, Wc, S, C)))
-        wln = np.ascontiguousarray(
-            np.broadcast_to(wlen[:, :, None, :], (N, Wc, S, C)))
-        wxt = np.ascontiguousarray(
-            np.broadcast_to(xti[:, :, None, :], (N, Wc, S, C)))
-        sh = NamedSharding(self.mesh, P(MESH_AXIS))
-        rep = NamedSharding(self.mesh, P())
-        if getattr(self._xt_lut_dev, "sharding", None) != rep:
-            self._xt_lut_dev = jax.device_put(self._xt_lut_dev, rep)
-        fn = _scores_packed_chained_shmap(
-            self.mesh, self.kappa, int(cap), int(maxblk), self.nseg,
-            self.interpret)
-        return fn(jax.device_put(pidx, sh), self.tables, self.tvecs,
-                  jax.device_put(sblk, sh), jax.device_put(wlen, sh),
-                  jax.device_put(gst, sh), jax.device_put(wsb, sh),
-                  jax.device_put(wln, sh), jax.device_put(wxt, sh),
-                  self._xt_lut_dev, self.dev_codes.dev)

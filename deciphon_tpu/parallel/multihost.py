@@ -2,8 +2,7 @@
 
 The reference's cross-machine tier is a services fabric — MQTT job
 dispatch plus REST/S3 artifact movement (cli/deciphon/worker.py:74-253,
-sched/journal.py) — with no data-plane collectives at all.  The TPU-native
-replacement runs one JAX process per host (`jax.distributed`), statically
+sched/journal.py) — with no data-plane collectives at all.  The replacement here runs one JAX process per host (`jax.distributed`), statically
 partitions the pressed profile DB into contiguous per-process shards (the
 DCN analog of the reference's intra-node protein partitions,
 c-core/protein_reader.c:29-53 with the balanced split of
@@ -54,7 +53,7 @@ def init_multihost(coordinator_address: str, num_processes: int,
     On CPU this still exercises the real multi-process runtime — the
     coordination service, process-spanning device enumeration and
     collectives — which is how the multi-host path is dry-run without N
-    TPU hosts."""
+    accelerator hosts."""
     import jax
 
     jax.distributed.initialize(
@@ -207,7 +206,7 @@ def supervise_shards(shared_dir: str, num_processes: int, spawn, *,
     is re-dispatched up to `max_retries` times (shards are idempotent:
     the shard dir is rewritten and the sentinel is written last, so a
     retry is safe); beyond that the shard is marked failed.  This is the
-    TPU-tier analog of the reference CLI worker restarting a crashed
+    analog of the reference CLI worker restarting a crashed
     scanner and reporting failure upstream
     (cli/deciphon/worker.py:166-175).
 

@@ -201,14 +201,9 @@ def press_profile(hmm: HMMProfile, gencode_id: int, epsilon: float,
     )
 
 
-def sample_profile(seed: int, core_size: int, gencode_id: int = 1,
-                   epsilon: float = 0.1,
-                   entry_dist: int = ENTRY_DIST_OCCUPANCY) -> FrameProfile:
-    """Random profile for tests (analog of c-core/protein.c:122-167).
-
-    Uses numpy RNG, not imm_rnd — scores are self-consistent, not
-    bit-identical to the reference's sampled profiles.
-    """
+def sample_hmm(seed: int, core_size: int) -> tuple[HMMProfile, np.ndarray]:
+    """Random amino profile HMM and its null amino log-probs, the source
+    of sample_profile (the same seed gives the same model)."""
     rng = np.random.default_rng(seed)
 
     def sample_lprobs(n):
@@ -239,5 +234,17 @@ def sample_profile(seed: int, core_size: int, gencode_id: int = 1,
         match_lprobs=match_lprobs.astype(np.float32),
         trans=trans.astype(np.float32),
     )
+    return hmm, null_lprobs
+
+
+def sample_profile(seed: int, core_size: int, gencode_id: int = 1,
+                   epsilon: float = 0.1,
+                   entry_dist: int = ENTRY_DIST_OCCUPANCY) -> FrameProfile:
+    """Random profile for tests (analog of c-core/protein.c:122-167).
+
+    Uses numpy RNG, not imm_rnd — scores are self-consistent, not
+    bit-identical to the reference's sampled profiles.
+    """
+    hmm, null_lprobs = sample_hmm(seed, core_size)
     return press_profile(hmm, gencode_id, epsilon, entry_dist,
                          null_amino_lprobs=null_lprobs)

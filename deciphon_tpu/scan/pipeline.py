@@ -4,12 +4,12 @@ Reference call stack being re-architected (SURVEY.md §3.2): the per-thread
 protein x sequence x window loop of c-core/thread.c:49-208 becomes
 
   phase 1 (device, batched): null + alt frame Viterbi for every in-flight
-    (profile, window) pair at once — the ragged Pallas kernel
-    (ops/viterbi_pallas.py) via the batch scheduler (scan/scheduler.py) —
-    then the LRT filter (thread.c:114-121);
-  phase 2 (device per survivor + host): path Viterbi -> packed trellis ->
-    host traceback -> hit segmentation -> ML codon/amino decode -> product
-    line (thread.c:126-207).
+    (profile, window) pair at once — the Hopper kernel on a GPU, the plain
+    lax.scan engine on the CPU — via the batch scheduler
+    (scan/scheduler.py), then the LRT filter (thread.c:114-121);
+  phase 2 (device per survivor group + host): path Viterbi -> packed
+    trellis -> device traceback -> hit segmentation -> ML codon/amino
+    decode -> product line (thread.c:126-207).
 
 Windows of one (profile, sequence) pair advance serially with last-hit
 feedback (exact window.c semantics); batching happens across the full
@@ -36,7 +36,7 @@ from ..ops.costs import ViterbiCosts, build_costs
 from ..profile import FrameProfile
 from .decoder import Decoder
 from .product import ProductLine, ProductWriter
-from .scheduler import JaxPairScorer, PairItem, PairScorer
+from .scheduler import PairItem, PairScorer
 from .sequence import Sequence
 from .window import WindowCursor
 
@@ -66,9 +66,9 @@ class ScanConfig:
     multi_hits: bool = True
     hmmer3_compat: bool = False
     max_pairs: int = 256  # pairs in flight per scoring round
-    # "pallas" | "pallas-interpret" | "pallas-multi" |
-    # "pallas-multi-interpret" | "jax" | "native"
-    engine: str = "pallas"
+    # "cuda" (the Hopper kernel) | "jax" (plain XLA) | "native" (host
+    # C++); None takes default_engine() of the first device's platform
+    engine: str | None = None
     # Thread count for the host ("native") engine only; 0 = all cores.
     # Device engines run one jitted program — the flag is meaningless
     # there (the reference's NUM_THREADS OpenMP fan-out,
@@ -83,6 +83,16 @@ class ScanConfig:
     spec_depth: int = 64
 
 
+def default_engine(platform: str) -> str:
+    """The phase-1 engine for a JAX platform: the Hopper kernel on a GPU,
+    the plain XLA engine on the CPU."""
+    if platform == "gpu":
+        return "cuda"
+    if platform == "cpu":
+        return "jax"
+    raise ValueError(f"no scan engine for platform {platform!r}")
+
+
 class Scanner:
     """Scans sequence batches against a list of pressed profiles.
 
@@ -90,14 +100,23 @@ class Scanner:
     and must return (logevalue, h3r_blob|None) — the hmmpgmd confirmation
     stage (c-core/hmmer.c).  Without it, every LRT hit is kept and
     reported with evalue 1 (log 0).
+
+    `devices` (default: the first JAX device) are the devices phase 1 runs
+    on; with several, each scoring call's pairs are sharded over them.
     """
 
     def __init__(self, profiles: list[FrameProfile], config: ScanConfig = None,
-                 confirmer=None, abc_name: str = "dna", scorer=None):
+                 confirmer=None, abc_name: str = "dna", scorer=None,
+                 devices=None):
+        import jax
+
         self.profiles = profiles
         self.config = config or ScanConfig()
         self.confirmer = confirmer
         self.abc_name = abc_name
+        self.devices = list(devices) if devices else jax.devices()[:1]
+        self.engine = (self.config.engine
+                       or default_engine(self.devices[0].platform))
         self.costs: list[ViterbiCosts] = [
             build_costs(p, self.config.multi_hits, self.config.hmmer3_compat)
             for p in profiles
@@ -115,32 +134,15 @@ class Scanner:
         scorer = self._scorer_spec
         if scorer is not None:
             return scorer(self.costs) if callable(scorer) else scorer
-        if self.config.engine == "jax":
-            return JaxPairScorer(self.costs)
-        if self.config.engine == "native":
+        if self.engine == "native":
             # Multithreaded striped-SIMD CPU engine (native/): the host
             # fallback and the measured reads/s baseline (BASELINE.md).
             from ..native import NativePairScorer
 
             return NativePairScorer(
                 self.costs, nthreads=self.config.num_threads or None)
-        if self.config.engine.startswith("pallas-multi"):
-            # Device-parallel production path: the SAME BucketedPairScorer
-            # machinery (device codes, wave pipelining, per-rung widths,
-            # path kernel), with phase-1 waves shard_map'd over all local
-            # devices (parallel/multidevice.py).
-            import jax
-
-            from .scheduler import BucketedPairScorer
-
-            return BucketedPairScorer(
-                self.costs, devices=jax.devices(),
-                interpret=self.config.engine.endswith("-interpret"))
-        from .scheduler import BucketedPairScorer
-
-        return BucketedPairScorer(
-            self.costs,
-            interpret=(self.config.engine == "pallas-interpret"))
+        return PairScorer(self.costs, backend=self.engine,
+                          devices=self.devices)
 
     def release(self) -> None:
         """Free engine state held between runs: per-bucket scorers (the
@@ -149,6 +151,8 @@ class Scanner:
         reference's workload cache (c-core/workload.c:21-64: cache=false
         re-reads every protein from disk per work, trading time for
         memory) — here the trade is device HBM instead of host RAM."""
+        if self.scorer is not None and hasattr(self.scorer, "release"):
+            self.scorer.release()
         self.scorer = None
         self._decoders.clear()
 
@@ -165,14 +169,13 @@ class Scanner:
         profile) amortizes over every later scan on the machine.
         Returns the wall seconds spent.
 
-        The chain tiers pin their (cap, cmax, w) shapes from the FIRST
-        wave's window-size mass (scheduler.py _mass_p90), so warmup only
-        covers a later scan's shapes when its reads RESEMBLE that scan's:
-        pass the read lengths you expect in production (e.g.
-        `read_lengths=[10000]`, `reads_per_length=16`).  The default —
-        one full-window read per distinct core size plus a 10 knt read,
-        the common long-read-sequencing scale — covers each bucket's
-        whole-read rung and the windowed small-K shapes."""
+        Compiled shapes follow the pair count of each wave and, for the
+        plain engine, the window lengths, so pass the read lengths you
+        expect in production (e.g. `read_lengths=[10000]`,
+        `reads_per_length=16`).  The default — one full-window read per
+        distinct core size plus a 10 knt read, the common
+        long-read-sequencing scale — covers each bucket's whole-read and
+        windowed shapes."""
         import tempfile
         import time as _time
 
@@ -212,15 +215,12 @@ class Scanner:
             if done_pairs:
                 log.info("resuming scan: %d pairs already complete",
                          len(done_pairs))
-        # Scan-resident device codes: one upload per run, rounds then ship
-        # only window metadata (the round-2 steady state was dominated by
-        # re-packing and re-uploading code blocks every round).
+        # Scan-resident device codes: one upload per run; scoring calls
+        # then ship only window metadata.
         self._dev_codes = None
-        if hasattr(self.scorer, "set_device_codes"):
+        if hasattr(self.scorer, "make_device_codes"):
             with self.metrics.timed("seq_upload"):
-                from .scheduler import DeviceSeqCodes
-
-                self._dev_codes = DeviceSeqCodes(sequences)
+                self._dev_codes = self.scorer.make_device_codes(sequences)
                 self.scorer.set_device_codes(self._dev_codes)
         if hasattr(self.scorer, "set_metrics"):
             self.scorer.set_metrics(self.metrics)
@@ -289,25 +289,19 @@ class Scanner:
                 refill(key)
             finish_ready()
 
-        # Wave size scales with the profile count: the kernel's padded
-        # rate grows with slot width, and each profile's slots can only
-        # fill from ITS OWN items in the wave — at 500 profiles a flat
-        # 2048-item wave leaves ~4 windows per profile and every chain
-        # pins w=8 (round-5 Pfam-scale measurement: 74 vs 216 padded
-        # GCUPS at Kp2048 for w=8 vs w=64 planes).  64 slots per profile
-        # is the width where the plane-rate curve flattens; device
-        # memory stays bounded by the in-flight byte drain.
+        # Wave size scales with the profile count, so that a large
+        # database still sends each bucket enough pairs per call to
+        # fill the device.
         cap = max(self.config.max_pairs * 8, P * 64)
         can_pipeline = hasattr(self.scorer, "dispatch_all")
 
         def assemble() -> list[PairItem]:
             # Round-robin across (profile, sequence) chains: serial
-            # (p, s)-ordered filling starved late profiles' scorers in
-            # early waves (their first dispatch then pinned degenerate
-            # chain shapes) and left buckets idle while others drained.
-            # Interleaving keeps every bucket's scorer fed a
-            # representative mix each wave; product order is restored at
-            # write time, so wave composition never affects output.
+            # (p, s)-ordered filling starved late profiles' buckets in
+            # early waves and left buckets idle while others drained.
+            # Interleaving keeps every bucket fed a representative mix
+            # each wave; product order is restored at write time, so
+            # wave composition never affects output.
             wave: list[PairItem] = []
             pending = [iter(chains[key]) for key in sorted(chains)]
             while pending and len(wave) < cap:
@@ -397,8 +391,7 @@ class Scanner:
                 # passes), and only then fetch/decode wave k's paths —
                 # so the step-array fetch waits for the path kernels
                 # alone while wave k+1's phase-1 overlaps the host-side
-                # decode/product work (round-4 booked wave k+1's device
-                # time to phase2_collect because paths enqueued last).
+                # decode/product work.
                 survivors, pend = [], []
                 if inflight is not None:
                     prev_handle, prev_items = inflight
@@ -480,16 +473,6 @@ class Scanner:
 
         sitems = [it for it, _ in survivors]
         inflight: list[tuple] = []
-        if hasattr(self.scorer, "paths_dispatch"):
-            # Pallas path kernel + device traceback for every tier that
-            # has one; only large-K (HBM-table) survivors fall through.
-            # Entries stay un-fetched so the WHOLE wave's step arrays
-            # (every scorer + the fallback groups below) cross in one
-            # device_get — per-scorer fetches each paid a host-link
-            # round trip (the measured survivor-heavy dominant cost).
-            entries, sitems = self.scorer.paths_dispatch(sitems)
-            inflight.extend((*e, 0) for e in entries)
-
         groups: dict[tuple[int, int], list[PairItem]] = {}
         for it in sitems:
             groups.setdefault((it.p_idx, _pad_len(it.win.length)),

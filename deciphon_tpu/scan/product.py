@@ -84,7 +84,7 @@ class ProductWriter:
       <dir>/products.tsv
       <dir>/hmmer/<seq>/<window>/<hit>/<profile>.h3r
 
-    Checkpointing (a TPU-build addition; the reference has no in-flight
+    Checkpointing (an addition of this build; the reference has no in-flight
     scan durability, SURVEY.md §5): `journal_line` appends each product to
     <dir>/.scan_checkpoint.jsonl as it is produced, and `load_checkpoint`
     replays it, so an interrupted scan resumes without rescoring finished

@@ -1,6 +1,6 @@
 """Sequence preparation: encoding and fragment-code precompute.
 
-TPU-first design: the per-(position, duration) emission "code" lookups the
+Design: the per-(position, duration) emission "code" lookups the
 reference does on the fly (imm_eseq_get, c-core/thread.c:92-96) are
 precomputed host-side into a dense (L, 5) int32 array once per sequence, so
 the device DP is pure gathers with static shapes.

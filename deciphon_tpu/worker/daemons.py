@@ -134,7 +134,7 @@ class ScannerDaemon:
 
 
 def launch_scanner(dbfile: str, multi_hits: bool = True,
-                   hmmer3_compat: bool = False, engine: str = "pallas",
+                   hmmer3_compat: bool = False, engine: str | None = None,
                    hmmer_port: int | None = None) -> ScannerDaemon:
     """Build a ScannerDaemon from a pressed database.
 

@@ -25,7 +25,7 @@ __all__ = ["worker", "WorkerLoop"]
 
 class WorkerLoop:
     def __init__(self, poster: Poster, workdir: str | None = None,
-                 engine: str = "pallas", confirm: str = "none"):
+                 engine: str | None = None, confirm: str = "none"):
         self.poster = poster
         self.workdir = workdir or tempfile.mkdtemp(prefix="deciphon_worker_")
         os.makedirs(self.workdir, exist_ok=True)
@@ -130,8 +130,8 @@ class WorkerLoop:
 @click.command()
 @click.option("--sched", "sched_url", required=True,
               help="Scheduler base URL, e.g. http://127.0.0.1:49329")
-@click.option("--engine", type=click.Choice(["pallas", "jax"]),
-              default="pallas", show_default=True)
+@click.option("--engine", type=click.Choice(["cuda", "jax"]), default=None,
+              help="Phase-1 engine [default: cuda on a GPU, jax on the CPU]")
 @click.option("--confirm", type=click.Choice(["none", "native"]),
               default="none", show_default=True)
 @click.option("--workdir", default=None)

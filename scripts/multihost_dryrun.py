@@ -1,6 +1,6 @@
 """Multi-host scan dryrun: N real processes, jax.distributed, shard merge.
 
-Validates the DCN execution path without N TPU hosts (SURVEY.md §2.3
+Validates the DCN execution path without N accelerator hosts (SURVEY.md §2.3
 comm-backend row; VERDICT r1 missing #4): spawns N CPU processes that
 join one jax.distributed coordination service, scan contiguous profile
 shards (deciphon_tpu/parallel/multihost.py), and merge product shards.

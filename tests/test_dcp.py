@@ -3,11 +3,11 @@ fixture interoperability (the externally pressed minifam.dcp)."""
 
 import os
 
-import msgpack
 import numpy as np
 import pytest
 
 from deciphon_tpu.hmmfile import read_hmm
+from deciphon_tpu.io import mpack
 from deciphon_tpu.io.dcp import (
     AMINO_SYMBOLS,
     DNA_SYMBOLS,
@@ -58,7 +58,7 @@ def test_abc_blobs_byte_exact_vs_reference():
     reproduced byte-for-byte — both blobs appear verbatim in the
     reference-pressed fixture."""
     data = open(REFERENCE_DCP, "rb").read()
-    pk = msgpack.Packer(use_single_float=True, autoreset=True)
+    pk = mpack.Packer(use_single_float=True)
     assert _pack_abc(pk, DNA_SYMBOLS, TYPEID_DNA) in data
     assert _pack_abc(pk, AMINO_SYMBOLS, TYPEID_AMINO) in data
 

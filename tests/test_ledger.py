@@ -1,18 +1,9 @@
-"""HBM capacity ledger: resident-vs-streamed table planning and the
-streamed scan path (the DB-exceeds-HBM tier, c-core/database_writer.c:14 /
-protein_reader.c:77-101 design point)."""
+"""Device-memory capacity ledger: resident-vs-streamed table planning and
+the streamed scan path (the database-exceeds-device tier,
+c-core/database_writer.c:14 / protein_reader.c:77-101 design point)."""
 
-import json
-import os
-
-import numpy as np
-import pytest
-
-from deciphon_tpu.scan.scheduler import (BucketedPairScorer, HBMLedger,
+from deciphon_tpu.scan.scheduler import (HBMLedger, PairScorer,
                                          device_table_budget)
-
-HERE = os.path.dirname(__file__)
-MINIFAM = "/root/reference/c-core/minifam.hmm"
 
 
 def test_ledger_plan_partition():
@@ -44,29 +35,25 @@ def test_device_table_budget_env(monkeypatch):
 def test_streamed_scan_products_identical(tmp_path):
     """A budget far below the table mass forces EVERY bucket to stream;
     products must match the fully resident scan byte for byte."""
-    from deciphon_tpu.io.dcp import read_dcp_profiles
-    from deciphon_tpu.press import press
-    from deciphon_tpu.scan.pipeline import ScanConfig, Scanner
+    import chip_smoke
+    from deciphon_tpu.scan.pipeline import Scanner
 
-    dcp = tmp_path / "minifam.dcp"
-    press(MINIFAM, str(dcp))
-    _, profiles = read_dcp_profiles(str(dcp))
-    with open(os.path.join(HERE, "data_consensus.json")) as fp:
-        entries = json.load(fp)[:2]
-    from deciphon_tpu.scan.sequence import Sequence
-
-    reads = [Sequence.make(e["id"], e["name"], e["seq"]) for e in entries]
+    profiles, hmms = chip_smoke.build_database(
+        4, str(tmp_path), ks=[20, 55, 58, 60, 62, 64, 66, 130])
+    reads, _ = chip_smoke.make_reads(profiles, hmms, 4, planted_ks=(60,),
+                                     read_len=1000, long_read_len=1500)
 
     outs = {}
     for label, budget in (("resident", None), ("streamed", 1)):
         sc = Scanner(
-            profiles, ScanConfig(engine="pallas-interpret"),
-            scorer=lambda costs, budget=budget: BucketedPairScorer(
-                costs, interpret=True, w=8, hbm_budget=budget))
+            profiles,
+            scorer=lambda costs, budget=budget: PairScorer(
+                costs, backend="jax", hbm_budget=budget))
         if label == "streamed":
-            assert all(s.stream_tables for s in sc.scorer.scorers
-                       if hasattr(s, "stream_tables"))
+            assert all(b.stream for b in sc.scorer.buckets)
             assert sc.scorer.ledger.streamed  # the ledger engaged
+        else:
+            assert not any(b.stream for b in sc.scorer.buckets)
         out = sc.run(reads, str(tmp_path / label))
         outs[label] = open(out).read()
     assert outs["resident"] == outs["streamed"]

@@ -1,150 +1,52 @@
-"""Device-parallel scan on the 8-virtual-CPU mesh: device-count
-invariance of the full Scanner's products (the reference's thread-count
-contract, python-core/tests/test_scan.py:102-104, at device level)."""
-
-import json
-import os
+"""Device-parallel scan on the virtual CPU mesh: the pair dimension of
+every phase-1 call sharded over the devices must leave the products
+byte-identical (the reference's thread-count contract,
+python-core/tests/test_scan.py:102-104, at device level)."""
 
 import jax
 import pytest
 
-from deciphon_tpu.io.dcp import read_dcp_profiles
-from deciphon_tpu.parallel.multidevice import MultiDevicePairScorer
-from deciphon_tpu.press import press
-from deciphon_tpu.profile import sample_profile
-from deciphon_tpu.scan.pipeline import ScanConfig, Scanner
-from deciphon_tpu.scan.scheduler import BucketedPairScorer
-from deciphon_tpu.scan.sequence import Sequence
-
-HERE = os.path.dirname(__file__)
-MINIFAM = "/root/reference/c-core/minifam.hmm"
-
-
-@pytest.fixture(autouse=True)
-def _small_rungs(monkeypatch):
-    """Interpret-mode kernels execute the DP as pure jax ops on CPU, so
-    runtime scales with padded block counts: drop the dispatch-latency
-    NLB floor (production: 32 -> 1280 positions minimum per window) so
-    these mesh tests pad windows to their real lengths."""
-    from deciphon_tpu.scan.scheduler import PackedPairScorer, PairScorer
-
-    monkeypatch.setattr(PairScorer, "NLB_FLOOR", 1)
-    monkeypatch.setattr(PackedPairScorer, "NLB_FLOOR", 1)
+from deciphon_tpu.scan.pipeline import Scanner
 
 
 @pytest.fixture(scope="module")
-def profiles(tmp_path_factory):
-    out = tmp_path_factory.mktemp("md") / "minifam.dcp"
-    press(MINIFAM, str(out), 1, 0.01)
-    return read_dcp_profiles(str(out))[1]
+def workload(tmp_path_factory):
+    """Seeded profiles and reads with planted domains, so phase 2 runs."""
+    import chip_smoke
+
+    tmp = str(tmp_path_factory.mktemp("md"))
+    profiles, hmms = chip_smoke.build_database(
+        3, tmp, ks=[25, 40, 55, 58, 60, 62, 64, 66, 90])
+    reads, _ = chip_smoke.make_reads(profiles, hmms, 3, planted_ks=(60,),
+                                     read_len=1200, long_read_len=3500)
+    return profiles, reads
 
 
-@pytest.fixture(scope="module")
-def seqs():
-    with open(os.path.join(HERE, "data_consensus.json")) as fp:
-        raw = json.load(fp)[:3]
-    return [Sequence.make(e["id"], e["name"], e["seq"]) for e in raw]
+def _scan(profiles, reads, path, devices=None):
+    sc = Scanner(profiles, devices=devices)
+    out = sc.run(reads, str(path))
+    return open(out).read(), sc
 
 
-@pytest.mark.slow
-def test_multidevice_full_scanner_e2e(profiles, seqs, tmp_path):
-    """The production device-parallel path end to end: speculation,
-    phase-2 path kernel, hits, product writing — byte-identical to the
-    1-device engine for the same workload.  Group width pinned to 8:
-    interpret-mode kernels unroll 5*w gathers per position, so
-    production widths would compile for minutes on CPU."""
+def test_multidevice_mini_e2e(workload, tmp_path):
+    """Eight devices against one: speculation, phase 2 and product
+    writing all live, products byte for byte."""
+    profiles, reads = workload
     assert len(jax.devices()) >= 8
-
-    single = Scanner(profiles, ScanConfig(engine="pallas-interpret"),
-                     scorer=lambda costs: BucketedPairScorer(
-                         costs, interpret=True, w=8))
-    out_single = single.run(seqs, str(tmp_path / "single"))
-    assert single.metrics.survivors > 0  # phase 2 really ran
-
-    multi = Scanner(profiles, ScanConfig(engine="pallas-multi-interpret"),
-                    scorer=lambda costs: BucketedPairScorer(
-                        costs, interpret=True, w=8,
-                        devices=jax.devices()))
-    out_multi = multi.run(seqs, str(tmp_path / "multi"))
-    assert multi.metrics.survivors == single.metrics.survivors
-
-    assert open(out_single).read() == open(out_multi).read()
-    # the multi engine really used the sharded scorer tiers (packed
-    # small-K classes included — round-4's mesh tier lost lane packing)
-    from deciphon_tpu.parallel.multidevice import MultiDevicePackedScorer
-
-    assert all(isinstance(s, (MultiDevicePairScorer,
-                              MultiDevicePackedScorer))
-               for s in multi.scorer.scorers)
+    single, sc1 = _scan(profiles, reads, tmp_path / "single")
+    multi, sc8 = _scan(profiles, reads, tmp_path / "multi", jax.devices()[:8])
+    assert sc8.scorer.mesh is not None and sc1.scorer.mesh is None
+    assert sc1.metrics.survivors > 0, "the workload must reach phase 2"
+    assert multi == single
 
 
-def test_multidevice_mini_e2e(profiles, seqs, tmp_path):
-    """Fast-tier representative of the full device-parallel scanner: one
-    consensus read through the mesh engine (chains + packed small-K
-    classes + phase 2), products byte-identical to 1-device."""
-    assert len(jax.devices()) >= 8
-    single = Scanner(profiles, ScanConfig(engine="pallas-interpret"),
-                     scorer=lambda costs: BucketedPairScorer(
-                         costs, interpret=True, w=8))
-    out_single = single.run(seqs[:1], str(tmp_path / "single"))
-    multi = Scanner(profiles, ScanConfig(engine="pallas-multi-interpret"),
-                    scorer=lambda costs: BucketedPairScorer(
-                        costs, interpret=True, w=8,
-                        devices=jax.devices()))
-    out_multi = multi.run(seqs[:1], str(tmp_path / "multi"))
-    assert single.metrics.survivors > 0
-    assert open(out_single).read() == open(out_multi).read()
-
-
-@pytest.mark.slow
-def test_multidevice_longread_and_hbm_tier(tmp_path):
-    """Windowed long reads (speculative chains over many waves) plus an
-    HBM-table-tier profile through the device-parallel scorer, vs the
-    single-device run.  MAX_PALLAS_KP is forced down so the HBM path is
-    exercised with a SMALL profile — an interpret-mode compile of the
-    real K>2048 block kernel takes tens of minutes on CPU."""
-    import numpy as np
-
-    profiles = [sample_profile(seed=7, core_size=8),
-                sample_profile(seed=8, core_size=20),
-                sample_profile(seed=9, core_size=40)]
-    rng = np.random.default_rng(5)
-    seqs = [Sequence.make(i, f"r{i}", "".join(
-        "ACGT"[b] for b in rng.integers(0, 4, size=n)))
-        for i, n in enumerate((1300, 700))]
-
-    saved = BucketedPairScorer.MAX_PALLAS_KP
-    saved_pack = BucketedPairScorer.PACK_MAX_SEG
-    try:
-        BucketedPairScorer.MAX_PALLAS_KP = 64  # K=40 -> HBM tier
-        BucketedPairScorer.PACK_MAX_SEG = 0  # keep packing out
-        out1 = Scanner(profiles, ScanConfig(engine="pallas-interpret"),
-                       scorer=lambda costs: BucketedPairScorer(
-                           costs, interpret=True, w=8)).run(
-            seqs, str(tmp_path / "single"))
-        out2 = Scanner(profiles,
-                       ScanConfig(engine="pallas-multi-interpret"),
-                       scorer=lambda costs: BucketedPairScorer(
-                           costs, interpret=True, w=8,
-                           devices=jax.devices())).run(
-            seqs, str(tmp_path / "multi"))
-    finally:
-        BucketedPairScorer.MAX_PALLAS_KP = saved
-        BucketedPairScorer.PACK_MAX_SEG = saved_pack
-    assert open(out1).read() == open(out2).read()
-
-
-def test_multidevice_scorer_subset_of_devices(profiles, seqs, tmp_path):
-    """Custom factory over a 4-device subset (the pre-unification entry
-    point) still matches the plain jax engine."""
-    out_single = Scanner(profiles, ScanConfig(engine="jax")).run(
-        seqs[:2], str(tmp_path / "single"))
-
-    def make_scorer(costs):
-        return MultiDevicePairScorer(costs, devices=jax.devices()[:4],
-                                     interpret=True)
-
-    out_multi = Scanner(profiles, ScanConfig(engine="jax"),
-                        scorer=make_scorer).run(
-        seqs[:2], str(tmp_path / "multi"))
-    assert open(out_single).read() == open(out_multi).read()
+def test_multidevice_scorer_subset_of_devices(workload, tmp_path):
+    """A 3-device subset (pair counts padded to a multiple of 3) over the
+    windowed long read matches one device."""
+    profiles, reads = workload
+    single, _ = _scan(profiles, reads[1:], tmp_path / "single")
+    multi, sc = _scan(profiles, reads[1:], tmp_path / "multi",
+                      jax.devices()[:3])
+    assert sc.scorer.mesh.devices.size == 3
+    assert sc.metrics.windows_scored > len(profiles)
+    assert multi == single

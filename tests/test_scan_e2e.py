@@ -54,7 +54,7 @@ def read_products(path):
 
 def test_scan_consensus_hits_own_family(minifam_profiles, consensus_sequences,
                                         tmp_path):
-    scanner = Scanner(minifam_profiles, ScanConfig(engine="jax"))
+    scanner = Scanner(minifam_profiles, ScanConfig())
     out = scanner.run(consensus_sequences, str(tmp_path / "prod"))
     rows = read_products(out)
     assert rows, "consensus reads must produce hits"
@@ -95,49 +95,42 @@ def test_scan_flag_combos_change_products(minifam_profiles,
     assert outs[0] != outs[1]
 
 
-def test_engine_equivalence_pallas_interpret(minifam_profiles,
-                                             consensus_sequences, tmp_path):
+def test_engine_equivalence_oracle(minifam_profiles, consensus_sequences,
+                                   tmp_path, oracle_scorer):
     seqs = consensus_sequences[2:3]  # 23ISL (smallest profile hits fast)
-    out_j = Scanner(minifam_profiles, ScanConfig(engine="jax")).run(
-        seqs, str(tmp_path / "jax"))
-    out_p = Scanner(minifam_profiles,
-                    ScanConfig(engine="pallas-interpret")).run(
-        seqs, str(tmp_path / "pal"))
-    assert open(out_j).read() == open(out_p).read()
+    out_o = Scanner(minifam_profiles, scorer=oracle_scorer).run(
+        seqs, str(tmp_path / "oracle"))
+    out_d = Scanner(minifam_profiles).run(seqs, str(tmp_path / "default"))
+    assert open(out_o).read() == open(out_d).read()
 
 
-def test_bigk_vmem_bucket_equivalence(tmp_path):
-    """K past the pow2-2048 rung but under MAX_PALLAS_KP rides the
-    512-quantized VMEM chain bucket (round 5: the 96 MB scoped limit
-    fits a Kp=5120 table; the HBM-streamed tier starts beyond).
-    Products must equal the jax oracle engine's."""
+def test_bigk_vmem_bucket_equivalence(tmp_path, oracle_scorer):
+    """K past 2048 — the kernel's memory-state tier (a 2560-node block)
+    and a 4096-node plain bucket — scans to the products of the
+    per-window, unpadded oracle."""
     import numpy as np
 
     from deciphon_tpu.profile import sample_profile
-    from deciphon_tpu.scan.scheduler import BucketedPairScorer
+    from deciphon_tpu.scan.scheduler import bucket_nodes
     from deciphon_tpu.scan.sequence import Sequence
 
     profiles = [sample_profile(seed=81, core_size=2300)]
     rng = np.random.default_rng(13)
     seqs = [Sequence.make(0, "r0", "".join(
         "ACGT"[b] for b in rng.integers(0, 4, size=2000)))]
-    out_j = Scanner(profiles, ScanConfig(engine="jax")).run(
-        seqs, str(tmp_path / "jax"))
-    sc = Scanner(profiles, ScanConfig(engine="pallas-interpret"))
-    out_p = sc.run(seqs, str(tmp_path / "pal"))
-    assert open(out_j).read() == open(out_p).read()
-    # and it must be a VMEM (non-HBM) scorer (the 512-quantized bucket
-    # groups profiles; the scorer's Kp is its members' 128-aligned need)
-    assert 2048 < 2302 <= BucketedPairScorer.MAX_PALLAS_KP
-    s = sc.scorer.scorers[0]
-    assert not s.hbm_table and s._tables_host.shape[2] == 2304
+    out_o = Scanner(profiles, scorer=oracle_scorer).run(
+        seqs, str(tmp_path / "oracle"))
+    sc = Scanner(profiles)
+    out_d = sc.run(seqs, str(tmp_path / "default"))
+    assert open(out_o).read() == open(out_d).read()
+    assert sc.scorer.buckets[0].kn == 4096
+    assert bucket_nodes(2300, "cuda") == 2560
 
 
-def test_uniform_k_pack_windowed_reads_equivalence(tmp_path):
-    """Same-K profiles share WINDOW boundaries, so their windowed reads
-    ride the packed chain tier (scheduler _uniform_pack); products must
-    equal the jax engine's on a read long enough to be windowed
-    (5 knt > 50*K for K=60)."""
+def test_uniform_k_pack_windowed_reads_equivalence(tmp_path, oracle_scorer):
+    """Same-K profiles over reads long enough to be windowed (5 knt >
+    50*K for K=60): every window of every profile goes to one bucket's
+    calls, and the products equal the per-window oracle's."""
     import numpy as np
 
     from deciphon_tpu.profile import sample_profile
@@ -149,17 +142,13 @@ def test_uniform_k_pack_windowed_reads_equivalence(tmp_path):
     seqs = [Sequence.make(i, f"r{i}", "".join(
         "ACGT"[b] for b in rng.integers(0, 4, size=n)))
         for i, n in enumerate((5000, 2400, 900))]
-    out_j = Scanner(profiles, ScanConfig(engine="jax")).run(
-        seqs, str(tmp_path / "jax"))
-    sc = Scanner(profiles, ScanConfig(engine="pallas-interpret"))
-    out_p = sc.run(seqs, str(tmp_path / "pal"))
-    assert open(out_j).read() == open(out_p).read()
-    # the packed tier must actually be the path that scored them
-    from deciphon_tpu.scan.scheduler import PackedPairScorer
-
-    packed = [s for s in sc.scorer.scorers
-              if isinstance(s, PackedPairScorer)]
-    assert packed and all(packed[0]._uniform_pack)
+    out_o = Scanner(profiles, scorer=oracle_scorer).run(
+        seqs, str(tmp_path / "oracle"))
+    sc = Scanner(profiles)
+    out_d = sc.run(seqs, str(tmp_path / "default"))
+    assert open(out_o).read() == open(out_d).read()
+    assert len(sc.scorer.buckets) == 1
+    assert sc.metrics.windows_scored > len(seqs) * len(profiles)
 
 
 def test_scan_with_native_confirmation(minifam_profiles, consensus_sequences,
